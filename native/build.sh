@@ -1,6 +1,10 @@
 #!/bin/sh
-# Build the plslam native IO library (C++, zlib only).
+# Build the plslam native IO library (C++, zlib only). The library is written
+# under a temporary name and renamed into place, so processes that build at
+# the same time never load a half-written file.
 set -e
 cd "$(dirname "$0")"
-g++ -O3 -shared -fPIC -std=c++17 -o libplslam_io.so dataloader.cpp -lz
+tmp="libplslam_io.so.tmp.$$"
+g++ -O3 -shared -fPIC -std=c++17 -o "$tmp" dataloader.cpp -lz
+mv -f "$tmp" libplslam_io.so
 echo "built $(pwd)/libplslam_io.so"

@@ -1,6 +1,6 @@
 // plslam native IO: PNG grayscale decode + CLAHE + batch prefetch helpers.
 //
-// TPU-native equivalent of the reference's host-side data pump
+// Native equivalent of the reference's host-side data pump
 // (`feature_tracker_node.cpp` image callbacks + cv::imdecode + cv::CLAHE —
 // SURVEY.md §2.1). The compute path stays JAX/XLA; this is the runtime IO
 // layer the reference also kept native. Exposed as a C ABI consumed from

@@ -202,6 +202,9 @@ def main(argv=None):
     e.set_defaults(fn=cmd_eval)
 
     args = ap.parse_args(argv)
+    from plslam.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

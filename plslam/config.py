@@ -76,10 +76,10 @@ class SolverConfig:
 
     window_size: int = 10  # 11 states in the window
     max_num_iterations: int = 8
-    max_solver_time: float = 0.04  # informational; TPU path is fixed-iteration
+    max_solver_time: float = 0.04  # informational; the solve is fixed-iteration
     keyframe_parallax: float = 10.0  # px, MIN_PARALLAX (divided by FOCAL internally)
     focal_length: float = 460.0  # FOCAL_LENGTH for residual whitening
-    # fixed capacities (TPU static shapes) — no reference equivalent (lists there)
+    # fixed capacities (static device shapes) — no reference equivalent (lists there)
     max_features: int = 192
     max_line_feats: int = 64
     # damping / robust loss
@@ -139,7 +139,7 @@ class LoopConfig:
     min_pnp_inliers: int = 25
     max_loop_yaw_deg: float = 30.0
     max_loop_translation: float = 20.0
-    max_keyframes: int = 2048  # fixed DB capacity (TPU static shapes)
+    max_keyframes: int = 2048  # fixed DB capacity (static device shapes)
     # detectLoop temporal consistency: a candidate is accepted only when the
     # previous (loop_consistency − 1) keyframe queries also produced a
     # candidate within ±consistency_gap indices of it — transient perceptual

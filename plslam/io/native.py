@@ -1,37 +1,61 @@
 """ctypes bindings to the native IO library (native/dataloader.cpp).
 
 The reference's data pump (rosbag decode + cv::imdecode + CLAHE) was native
-C++; so is ours — the PNG decode and CLAHE run in C++, with a pure-Python
-fallback when the library isn't built (no pybind11 in the image; plain C ABI
-via ctypes)."""
+C++; so is ours — the PNG decode and CLAHE run in C++ (no pybind11 in the
+image; plain C ABI via ctypes). The library is built from source on first use,
+and rebuilt whenever `dataloader.cpp` is newer than it. If the build fails the
+callers fall back to the pure-Python decoder, and the compiler's error is
+warned about and kept in `build_error()`."""
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import warnings
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_BUILD_ERROR = None
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
+LIB_PATH = os.path.join(_NATIVE_DIR, "libplslam_io.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "dataloader.cpp")
+
+
+def _stale() -> bool:
+    return (not os.path.exists(LIB_PATH)
+            or os.path.getmtime(LIB_PATH) < os.path.getmtime(_SRC_PATH))
+
+
+def _build() -> str | None:
+    """Run native/build.sh; returns None on success, else the error text."""
+    try:
+        r = subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
+                           capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return repr(e)
+    if r.returncode != 0:
+        return (r.stderr or r.stdout).strip() or f"build.sh exited {r.returncode}"
+    return None
 
 
 def _load():
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _BUILD_ERROR
     if _TRIED:
         return _LIB
     _TRIED = True
-    so = os.path.join(_NATIVE_DIR, "libplslam_io.so")
-    if not os.path.exists(so):
-        try:
-            subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
-                           capture_output=True, timeout=120, check=True)
-        except Exception:
+    if _stale():
+        _BUILD_ERROR = _build()
+        if _BUILD_ERROR is not None:
+            warnings.warn("native IO library failed to build; using the Python "
+                          f"PNG decoder and CLAHE:\n{_BUILD_ERROR}")
             return None
     try:
-        lib = ctypes.CDLL(so)
-    except OSError:
+        lib = ctypes.CDLL(LIB_PATH)
+    except OSError as e:
+        _BUILD_ERROR = str(e)
+        warnings.warn(f"native IO library failed to load: {e}")
         return None
     lib.plslam_load_png_gray.restype = ctypes.c_int
     lib.plslam_load_png_gray.argtypes = [
@@ -50,6 +74,12 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def build_error() -> str | None:
+    """The build or load error of the native library, None if it loaded."""
+    _load()
+    return _BUILD_ERROR
 
 
 def load_png_gray(path: str, max_w=4096, max_h=4096) -> np.ndarray | None:

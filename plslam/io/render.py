@@ -11,6 +11,7 @@ graph, exactly as it would on the real dataset.
 from __future__ import annotations
 
 import os
+import shutil
 import struct
 import zlib
 
@@ -193,3 +194,83 @@ def write_euroc_dataset(seq: SyntheticSequence, out_dir: str, cam, h: int, w: in
             p = np.asarray(seq.gt_p[k]); q = np.asarray(seq.gt_q[k]); v = np.asarray(seq.gt_v[k])
             f.write(f"{int(frame_t[k]*1e9)},{p[0]},{p[1]},{p[2]},{q[0]},{q[1]},{q[2]},{q[3]},{v[0]},{v[1]},{v[2]}\n")
     return out_dir
+
+
+# Camera of the EuRoC-class recipe below: 752×480 pinhole, f = 460 px.
+EUROC_CLASS_SHAPE = (480, 752)
+EUROC_CLASS_INTRINSICS = (460.0, 460.0, 376.0, 240.0)
+
+
+def _png_shape(path: str):
+    """(h, w) from a PNG's IHDR chunk, None if the file is missing or not a PNG."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(24)
+    except OSError:
+        return None
+    if len(head) < 24 or head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        return None
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
+def _rendered_matches(out_dir: str, seed: int, n_frames: int) -> bool:
+    """True when `out_dir` holds this recipe's render for `seed`/`n_frames`."""
+    meta_path = os.path.join(out_dir, "meta.npz")
+    if not os.path.exists(meta_path):
+        return False
+    with np.load(meta_path) as meta:
+        if ("seed" not in meta.files or int(meta["seed"]) != seed
+                or int(meta["n_frames"]) != n_frames):
+            return False
+    cam_dir = os.path.join(out_dir, "mav0", "cam0")
+    try:
+        with open(os.path.join(cam_dir, "data.csv")) as f:
+            names = [ln.strip().split(",")[1] for ln in f if not ln.startswith("#")]
+    except (OSError, IndexError):
+        return False
+    return (len(names) == n_frames
+            and _png_shape(os.path.join(cam_dir, "data", names[0])) == EUROC_CLASS_SHAPE)
+
+
+def write_euroc_class_dataset(out_dir: str, seed: int = 17, n_frames: int = 160):
+    """Render the EuRoC-class sequence used by `bench.py` and `chip_smoke.py`
+    into `out_dir` and return its metadata: R_bc, p_bc (body←camera
+    extrinsic), gt_t, gt_p, seed, n_frames.
+
+    752×480 pinhole (`EUROC_CLASS_SHAPE`, `EUROC_CLASS_INTRINSICS`) at
+    20 Hz, 200 Hz IMU with EuRoC-class noise and bias, a textured
+    500-landmark / 40-line world, 8 s (160 frames) by default. A render that
+    is already in `out_dir` is reused only when its seed, frame count and
+    first frame's shape match; otherwise it is replaced.
+    Rendering is host work with small JAX calls; run it with the CPU as the
+    default device to keep it off an accelerator."""
+    from plslam.io import synthetic
+    from plslam.ops.cameras import PinholeRadTan
+    from plslam.utils.geometry import quat_to_rot
+
+    meta_path = os.path.join(out_dir, "meta.npz")
+    if not _rendered_matches(out_dir, seed, n_frames):
+        # drop the other render, so no frame of it is left behind
+        shutil.rmtree(os.path.join(out_dir, "mav0"), ignore_errors=True)
+        if os.path.exists(meta_path):
+            os.remove(meta_path)
+        params = synthetic.TrajectoryParams(omega=0.4, z_omega=0.7,
+                                            wiggle_amp=0.15, excite_amp=0.1)
+        seq = synthetic.make_sequence(
+            duration=n_frames / 20.0, n_points=500, n_lines=40, seed=seed,
+            params=params, acc_noise=0.1, gyr_noise=0.005, acc_bias=0.05,
+            gyr_bias=0.002)
+        cam = PinholeRadTan.create(*EUROC_CLASS_INTRINSICS)
+        h, w = EUROC_CLASS_SHAPE
+        os.makedirs(out_dir, exist_ok=True)
+        write_euroc_dataset(seq, out_dir, cam, h, w, max_frames=n_frames,
+                            blob_sigma=3.0, style="textured")
+        tmp = meta_path + ".tmp.npz"
+        np.savez(tmp, R_bc=np.array(quat_to_rot(seq.q_bc)),
+                 p_bc=np.array(seq.p_bc), gt_t=np.asarray(seq.frame_t),
+                 gt_p=np.asarray(seq.gt_p), seed=np.int64(seed),
+                 n_frames=np.int64(n_frames))
+        os.replace(tmp, meta_path)
+    with np.load(meta_path) as meta:
+        return {k: meta[k] for k in meta.files}

@@ -168,8 +168,8 @@ def make_sequence(
     dtype=None,
 ) -> SyntheticSequence:
     # default dtype: f64 only when the runtime actually has it — requesting
-    # f64 under an f32-only runtime (TPU bench/dryrun) truncates silently and
-    # spams a warning per array, burying real warnings in BENCH/MULTICHIP logs
+    # f64 under an f32-only runtime (the bench/dryrun) truncates silently and
+    # spams a warning per array, burying real warnings in the logs
     if dtype is None:
         dtype = jnp.float64 if jax.config.x64_enabled else jnp.float32
     rng = np.random.default_rng(seed)

@@ -5,7 +5,7 @@ The generic path (`solver.linearize`) takes one `jacfwd` over the FULL
 tangent (D ≈ 600 directional derivatives of the whole residual stack) — exact
 but ~20× wasteful, since each residual touches ≤ 20 tangent dims. This module
 assembles H = ΣJᵀJ, b = ΣJᵀr the way the reference's Ceres + 4-pthread
-marginalization assembly did (SURVEY.md §2.3), TPU-style:
+marginalization assembly did (SURVEY.md §2.3), batched:
 
   * per-factor-type vmapped `jacfwd` over the LOCAL parameter slice
     (IMU: 30 dims; point: 20; line: 16; relo: 20),

@@ -1,6 +1,6 @@
 """Fixed-capacity point/line feature tables (host-side bookkeeping).
 
-TPU-native equivalent of the reference's
+JAX equivalent of the reference's
 `vins_estimator/src/feature_manager.cpp` (`FeatureManager`,
 `list<FeaturePerId>` / `list<lineFeaturePerId>`, `addFeatureCheckParallax`,
 `triangulate`, `triangulateLine`, `removeBackShiftDepth`, `removeFront`,

@@ -1,6 +1,6 @@
 """Schur-complement marginalization with First-Estimate-Jacobian prior.
 
-TPU-native equivalent of the reference's
+JAX equivalent of the reference's
 `vins_estimator/src/factor/marginalization_factor.cpp/.h`
 (`MarginalizationInfo::preMarginalize/marginalize`, `MarginalizationFactor`)
 — SURVEY.md §2.3 / §A.5. The reference assembled H = ΣJᵀJ on 4 pthreads,

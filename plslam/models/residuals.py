@@ -1,13 +1,13 @@
 """Stacked whitened residuals for the sliding-window visual-inertial BA.
 
-TPU-native equivalent of the reference's Ceres cost functions
+JAX equivalent of the reference's Ceres cost functions
 (`factor/imu_factor.h`, `factor/projection_factor.cpp`,
 `factor/projection_td_factor.cpp`, `factor/line_projection_factor.cpp`,
 `factor/marginalization_factor.cpp::MarginalizationFactor` — SURVEY.md §2.3,
 §A.2–A.5). Where Ceres evaluated one cost function per residual block on the
 CPU, here *all* factors evaluate as one fused masked batch: every
 (feature × frame) slot computes unconditionally and a 0/1 mask zeroes inactive
-slots — fixed shapes, no recompilation, VPU-friendly.
+slots — fixed shapes, no recompilation.
 
 Jacobians come from one `jax.jacfwd` of this stack through the manifold
 retraction (replacing all hand-written analytic jacobians; unit tests pin the

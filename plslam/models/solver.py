@@ -1,12 +1,12 @@
 """Batched damped Gauss-Newton / LM solver with landmark Schur elimination.
 
-TPU-native replacement for the reference's Ceres solve
+JAX replacement for the reference's Ceres solve
 (`Estimator::optimization()` → `ceres::Solve` with DENSE_SCHUR + trust region,
 ≤8 iterations — SURVEY.md §3.3 / §A.6). Instead of a general sparse solver,
 the window problem is one fixed-shape dense system:
 
   * one `jax.jacfwd` through the manifold retraction linearises *all* factors
-    at once (J is [N_res, D], a single fused batch — MXU-friendly),
+    at once (J is [N_res, D], a single fused batch),
   * H = JᵀJ, b = Jᵀr assembled as matmuls (the reference's 4-pthread Hessian
     assembly in `marginalization_factor.cpp` collapses to one einsum),
   * landmarks (inverse depths: scalar blocks; lines: 4×4 blocks) are
@@ -97,7 +97,7 @@ def linearize_blocks(state, f, lay: TangentLayout, focal, pt_w, ln_w, mask,
     each point slot reads off exactly ∂r/∂λ_f, and one direction per line
     orth component) — and ONE jacfwd over the whole stack yields J_cam AND
     both landmark jacobians as columns. (A previous version ran 1 jacfwd + 5
-    separate jvps; the window solve is op-latency-bound on TPU, and folding
+    separate jvps; the window solve is op-latency-bound, and folding
     all directions into one differentiation graph cut the per-iteration op
     count.) Normal-equation blocks (H_cc, B_d, d, B_l, C_b, b) are then
     assembled by einsum directly in the Schur block layout — no scatters, no
@@ -214,7 +214,7 @@ def schur_solve(H, b, lay: TangentLayout, lam, mask, eps=1e-8):
 
     The system is Jacobi-preconditioned (column scaling D = diag(H)^-½) before
     factorisation: IMU-bias whitening puts ~12 orders of magnitude on the
-    diagonal, which float32 — the TPU-native dtype — cannot survive raw. In
+    diagonal, which float32 — the accelerator dtype — cannot survive raw. In
     scaled variables diag(H̃)=1, so LM damping is simply +λI."""
     DC, MF, ML = lay.dim_cam, lay.max_f, lay.max_l
     dH = jnp.diag(H)
@@ -280,7 +280,7 @@ def optimize_window(
     landmark jvps + direct Schur-block einsum assembly — no dense [D,D] H).
     dense=True is the original full-tangent jacfwd (validation cross-check);
     structured=True is the per-factor scatter assembly (assembly.py — ~20×
-    fewer FLOPs but scatter-add-bound: measured 10× SLOWER on TPU v5e)."""
+    fewer FLOPs but scatter-add-bound; its GPU time is not measured)."""
     from plslam.models import assembly
 
     focal = cfg.focal_length

@@ -1,6 +1,6 @@
 """Sliding-window state as a fixed-shape pytree + its manifold structure.
 
-TPU-native equivalent of the reference estimator's raw state arrays
+JAX equivalent of the reference estimator's raw state arrays
 (`Estimator::Ps/Rs/Vs/Bas/Bgs[11]`, `tic/ric`, `td`, `para_Feature`,
 `para_LineFeature` — `vins_estimator/src/estimator.cpp`,
 `vector2double()/double2vector()`; SURVEY.md §2.3). Where the reference

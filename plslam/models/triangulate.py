@@ -1,6 +1,6 @@
 """Batched masked triangulation for points (DLT) and lines (two-plane).
 
-TPU-native equivalent of `FeatureManager::triangulate()` (per-feature SVD
+JAX equivalent of `FeatureManager::triangulate()` (per-feature SVD
 over all observations) and `FeatureManager::triangulateLine()` (plane-plane
 → dual Plücker matrix) — SURVEY.md §2.3 / §A.4. The reference looped per
 feature; here every feature triangulates in one batched SVD / einsum over the

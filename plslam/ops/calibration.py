@@ -1,6 +1,6 @@
 """Offline intrinsic calibration from planar-target views.
 
-TPU-native equivalent of the reference's `camera_model/src/intrinsic_calib.cc`
+JAX equivalent of the reference's `camera_model/src/intrinsic_calib.cc`
 + `calib/CameraCalibration.cc` (chessboard-based camodocal calibrator —
 SURVEY.md §2.5). Given detected target-corner pixels for N views of a planar
 grid (the chessboard detector's output), estimates pinhole+radtan intrinsics:
@@ -9,7 +9,7 @@ grid (the chessboard detector's output), estimates pinhole+radtan intrinsics:
      the absolute conic → (fx, fy, cx, cy); distortion starts at 0,
   2. per-view pose extraction from the homographies,
   3. joint batched GN over [intrinsics(8) | poses(6N)] with `jacfwd` through
-     the full projection chain — the Ceres refinement step, TPU-style (all
+     the full projection chain — the Ceres refinement step, batched (all
      views × corners evaluate as one fused batch).
 """
 from __future__ import annotations

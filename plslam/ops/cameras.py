@@ -1,12 +1,12 @@
 """Camera models: pinhole + radial-tangential distortion.
 
-TPU-native equivalent of the reference's camodocal subset
+JAX equivalent of the reference's camodocal subset
 (`camera_model/src/camera_models/PinholeCamera.cc`: `liftProjective`,
 `spaceToPlane` — SURVEY.md §2.5; reconstruction, reference mount empty).
 
 The camera is a NamedTuple of arrays → a jit-friendly pytree; all ops are
 vectorised over arbitrary leading axes so the whole feature table projects in
-one fused XLA call (no per-feature loops, MXU/VPU friendly).
+one fused XLA call (no per-feature loops).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """IMU midpoint preintegration + the 15-dim IMU factor residual.
 
-TPU-native equivalent of the reference's
+JAX equivalent of the reference's
 `vins_estimator/src/factor/integration_base.h` (`IntegrationBase::
 midPointIntegration / propagate / repropagate / evaluate`) and
 `factor/imu_factor.h` (`IMUFactor`) — SURVEY.md §2.3 / §A.2
@@ -139,9 +139,8 @@ def _noise_diag(noise: ImuNoise, dtype):
 def preintegrate_sequential(acc, gyr, dt, ba, bg, noise: ImuNoise) -> Preintegration:
     """The reference-shaped sequential recursion (`IntegrationBase::
     propagate` step by step, `lax.scan`). Kept as the ground-truth
-    implementation `preintegrate` is pinned against — a 512-step sequential
-    scan of 15×15 matmuls costs ~47 ms on the TPU (latency-bound), which
-    made it the dominant term of the burst pipeline."""
+    implementation `preintegrate` is pinned against — a long sequential
+    scan of 15×15 matmuls is latency-bound (its GPU time is not measured)."""
     dtype = acc.dtype
     n = dt.shape[0]
     noise_q = _noise_diag(noise, dtype)
@@ -170,7 +169,7 @@ def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise) -> Preintegration:
     `repropagate(ba', bg')` is just calling this again with new biases (the
     raw samples are kept by the caller).
 
-    TPU-native formulation: the midpoint recursion is ASSOCIATIVE, so the
+    Parallel formulation: the midpoint recursion is ASSOCIATIVE, so the
     whole integration runs as `lax.associative_scan` (log₂N rounds of
     batched ops) instead of N sequential steps:
 
@@ -181,18 +180,14 @@ def preintegrate(acc, gyr, dt, ba, bg, noise: ImuNoise) -> Preintegration:
         elementwise work, and β/α are (nested) prefix sums;
       * the error-state transition/noise pair composes as the monoid
         (F₂,Q₂)∘(F₁,Q₁) = (F₂F₁, F₂Q₁F₂ᵀ+Q₂), giving J = ∏F and P = ⊕Q in
-        one associative scan of batched 15×15 matmuls (MXU work).
+        one associative scan of batched 15×15 matmuls.
 
     Padded steps (δt = 0) are exact identities of every operation, so
     fixed-shape padding costs nothing and changes nothing. Equality with the
     sequential recursion is pinned by tests/test_imu.py (differences are
     float reassociation only; the sequential path normalizes γ per step,
-    this one normalizes the prefix products once).
-
-    Measured on the v5e: the 512-step sequential scan costs ~47 ms per call
-    (it made SECOND_NEW burst steps 4× slower than keyframe steps); this
-    formulation is ~1 ms and turned the burst chunk from 61 → ~15 ms per
-    published frame.
+    this one normalizes the prefix products once). Its GPU time against the
+    sequential scan is not measured.
     """
     dtype = acc.dtype
     n = dt.shape[0]

@@ -1,7 +1,7 @@
 """Plücker line geometry: orthonormal parameterisation, frame transforms,
 two-plane triangulation, point-line residual helpers.
 
-TPU-native equivalent of the reference's
+JAX equivalent of the reference's
 `vins_estimator/src/utility/line_geometry.cpp` (`plk_to_orth`, `orth_to_plk`,
 `plk_to_pose`, `plk_from_pose`, `pipi_plk` — SURVEY.md §2.3 / §A.4;
 reconstruction, reference mount empty).

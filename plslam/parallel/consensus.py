@@ -1,14 +1,14 @@
 """Keyframe-partitioned large-window BA with boundary-pose consensus.
 
 The reference cannot grow its window: the Ceres solve is O(window³) and
-single-threaded (SURVEY.md §5.7). This module is the TPU-native scaling
+single-threaded (SURVEY.md §5.7). This module is the accelerator scaling
 answer along the *keyframe* axis (the SLAM analog of sequence parallelism),
 complementing the landmark sharding of `distributed_ba`:
 
   * a long trajectory of N keyframes splits into P overlapping partitions of
     window_size+1 frames (1-frame overlap at each boundary),
   * ALL partitions solve in parallel as one batched `vmap` of the standard
-    LM/Schur window solver — one compiled kernel, P problems, MXU-friendly,
+    LM/Schur window solver — one compiled kernel, P problems, batched,
   * between rounds, partitions are chain-aligned through their shared
     boundary frame (a cost-free gauge transform) and the two copies of each
     boundary state are consensus-averaged (overlapping-Schwarz / simplified

@@ -2,7 +2,7 @@
 device mesh.
 
 No reference equivalent — the reference is single-machine ROS with zero
-collectives (SURVEY.md §2.6). This is the TPU-native scaling plan of
+collectives (SURVEY.md §2.6). This is the scaling plan of
 SURVEY.md §5.7/§5.8: the reduced camera system of an 11-pose window is tiny
 (DC×DC ≈ 172²), so poses are REPLICATED; landmarks (inverse-depth scalars,
 4-dof lines) and their observations are SHARDED across the `lmk` mesh axis.
@@ -13,7 +13,7 @@ Per LM iteration, inside one `shard_map`:
   2. eliminates its landmark blocks locally (block-diagonal Schur — blocks
      never mix shards, so no communication),
   3. `psum`s its reduced camera contribution (S_shard [DC,DC], rhs [DC]) —
-     the only collective, O(DC²) bytes over ICI,
+     the only collective, O(DC²) bytes over NVLink,
   4. solves the replicated DC×DC system (every shard redundantly — cheaper
      than broadcasting) and back-substitutes its local landmark deltas.
 

@@ -2,11 +2,11 @@
 one batched solve, optionally sharded over a device mesh.
 
 The reference has no DP at all (SURVEY.md §2.6 — one rosbag, one estimator
-process); its multi-sequence EuRoC evaluation is 11 serial runs. The
-TPU-native plan batches independent sequences/windows on the leading axis:
+process); its multi-sequence EuRoC evaluation is 11 serial runs. This
+plan batches independent sequences/windows on the leading axis:
 
   * `batched_optimize_windows` — `jax.vmap` of the standard LM/Schur window
-    solve: B problems, one compiled executable, MXU-batched linear algebra.
+    solve: B problems, one compiled executable, batched linear algebra.
     This is the benchmarking/eval workhorse (11 EuRoC sequences = B=11).
   * with `mesh`, the batch axis is device-sharded (`NamedSharding` on the
     mesh's first axis — the `dp` dimension): XLA runs each shard's batch

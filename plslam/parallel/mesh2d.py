@@ -13,8 +13,8 @@ shard of that partition:
     distributed-BA schedule (shared `make_lm_iter`),
   * across rows: partitions are independent inside the solve (no collective
     touches 'kf_part'); only the tiny host-side boundary consensus between
-    rounds couples them (the DCN-friendly axis — boundary state is ~30
-    floats per partition pair).
+    rounds couples them (the axis that tolerates a slow link — boundary
+    state is ~30 floats per partition pair).
 """
 from __future__ import annotations
 

@@ -1,17 +1,17 @@
 """Multi-host bring-up: `jax.distributed.initialize` + global mesh helpers.
 
 The reference's only "communication backend" was single-machine ROS TCPROS
-pub/sub (SURVEY.md §5.8); the TPU-native scaling plan replaces it with one
-global device mesh whose collectives XLA compiles onto ICI (intra-slice) and
-DCN (across hosts). This module is the process-level entry: call
-`init_distributed()` once per host process before building meshes, then
-`global_mesh_2d()` for the ('kf_part','lmk') layout used by
-`parallel/mesh2d.py` — consensus partitions ride the (slower, sparser) DCN
-axis across hosts, landmark-shard psums ride ICI within a slice.
+pub/sub (SURVEY.md §5.8); the scaling plan replaces it with one global device
+mesh whose collectives XLA compiles to NCCL. This module is the process-level
+entry: call `init_distributed()` once per host process before building
+meshes, then `global_mesh_2d()` for the ('kf_part','lmk') layout used by
+`parallel/mesh2d.py` — consensus partitions ride the (slower, sparser)
+network axis across hosts, landmark-shard psums ride NVLink among the
+all-to-all-connected cards of one host.
 
-In-sandbox this degrades gracefully to single-process (the sandbox has one
-host and one chip; multi-host behavior is validated on forced CPU device
-meshes — tests/test_multihost.py, SURVEY.md §4).
+Without a cluster configuration it stays single-process (multi-host behavior
+is validated on forced CPU device meshes — tests/test_multihost.py,
+SURVEY.md §4).
 """
 from __future__ import annotations
 
@@ -26,9 +26,10 @@ def init_distributed(coordinator_address: str | None = None,
     """Initialize JAX's multi-process runtime (idempotent).
 
     With no arguments, reads the standard cluster env
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a TPU
-    pod's automatic configuration). Returns True if a multi-process runtime
-    is active after the call, False for plain single-process mode."""
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); with
+    neither an address nor a process count it stays single-process. Returns
+    True if a multi-process runtime is active after the call, False for
+    plain single-process mode."""
     import jax
 
     # do NOT probe jax.process_count() here — it initializes the XLA backend,
@@ -41,13 +42,7 @@ def init_distributed(coordinator_address: str | None = None,
     pid = process_id if process_id is not None else (
         int(os.environ["JAX_PROCESS_ID"]) if "JAX_PROCESS_ID" in os.environ else None)
     if addr is None and nproc is None:
-        # no cluster config: on TPU pods jax.distributed.initialize() can
-        # auto-configure; anywhere else stay single-process
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            return False
-        return jax.process_count() > 1
+        return False
     jax.distributed.initialize(coordinator_address=addr,
                                num_processes=nproc, process_id=pid)
     return jax.process_count() > 1
@@ -57,8 +52,9 @@ def global_mesh_2d(n_part: int | None = None, n_lmk: int | None = None):
     """('kf_part','lmk') mesh over ALL processes' devices.
 
     Default shape: kf_part = number of hosts (consensus traffic is tiny and
-    infrequent → DCN), lmk = devices per host (psum of the reduced camera
-    system every LM iteration → ICI). Override either axis explicitly."""
+    infrequent → the network between hosts), lmk = devices per host (psum of
+    the reduced camera system every LM iteration → NVLink). Override either
+    axis explicitly."""
     import jax
     from jax.sharding import Mesh
 

@@ -1,6 +1,6 @@
 """Rotation / quaternion utilities (pure jnp, batch-friendly on leading axes).
 
-TPU-native equivalent of the reference's rotation helpers
+JAX equivalent of the reference's rotation helpers
 (`vins_estimator/src/utility/utility.h`: `Utility::deltaQ`, `skewSymmetric`,
 `R2ypr`, `ypr2R`, `g2R` — SURVEY.md §2.3, reconstruction; the reference mount
 was empty, see SURVEY.md §0).

@@ -1,9 +1,10 @@
-"""TPU micro-benchmark: float-cosine vs binary-Hamming LBD line matching
-(VERDICT r2 item #7 — measure, keep the winner, document).
+"""Micro-benchmark: float-cosine vs binary-Hamming LBD line matching (both
+plain XLA), host time per call after warm-up.
 
-Run: cd /root/repo && timeout 900 python scripts/bench_line_match.py
+Run: python scripts/bench_line_match.py
 """
 import json
+import os
 import sys
 import time
 
@@ -11,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from plslam.models import frontend_lines as fl
+from plslam.models import frontend_lines as fl  # noqa: E402
 
 
 def timeit(fn, *args, n=50, warmup=25):
@@ -40,23 +41,11 @@ def main():
     db2 = fl.binarize_lbd(desc2)
 
     t_float = timeit(lambda: fl.match_lbd(desc1, segs1, v, desc2, segs2, v))
-    t_bin = timeit(lambda: fl.match_lbd_binary(db1, segs1, v, db2, segs2, v, pallas=False))
-    results = {"float_cosine_ms": round(t_float, 3), "binary_xla_ms": round(t_bin, 3)}
-    if jax.default_backend() == "tpu":
-        t_pal = timeit(lambda: fl.match_lbd_binary(db1, segs1, v, db2, segs2, v, pallas=True))
-        results["binary_pallas_ms"] = round(t_pal, 3)
-        # distance-matrix only (the kernel's own surface)
-        from plslam.ops.kernels.hamming import hamming_matrix_pallas
-        from plslam.models.keyframe_db import hamming_matrix
-
-        results["hamming_pallas_ms"] = round(timeit(lambda: hamming_matrix_pallas(db1, db2)), 3)
-        results["hamming_xla_ms"] = round(timeit(lambda: hamming_matrix(db1, db2)), 3)
-        # equivalence sanity
-        a = np.asarray(hamming_matrix_pallas(db1, db2))
-        b = np.asarray(hamming_matrix(db1, db2))
-        assert (a == b).all(), "pallas != xla hamming"
-    results["backend"] = jax.default_backend()
-    print(json.dumps(results))
+    t_bin = timeit(lambda: fl.match_lbd_binary(db1, segs1, v, db2, segs2, v))
+    dev = jax.devices()[0]
+    print(json.dumps({"float_cosine_ms": round(t_float, 3),
+                      "binary_xla_ms": round(t_bin, 3),
+                      "platform": dev.platform, "device_kind": dev.device_kind}))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Experiment: does appearance-level loop closure fire end-to-end on rendered
 imagery? Mirrors tests/test_loop_e2e.py but with diagnostics printed.
 
-Run: PYTHONPATH=/root/repo python scripts/exp_loop.py
+Run (from the repository root): PYTHONPATH=. python scripts/exp_loop.py
 """
 import os
 import sys

@@ -2,10 +2,10 @@
 
 Launched as: python mp_worker.py <pid> <nproc> <coordinator_addr>
 with JAX_PLATFORMS=cpu and XLA_FLAGS=--xla_force_host_platform_device_count=4
-— two of these form a 2-process × 4-device cluster, the in-sandbox stand-in
-for a 2-host TPU slice (SURVEY.md §4/§5.8). Each process builds identical
+— two of these form a 2-process × 4-device cluster, the stand-in for a
+2-host GPU cluster (SURVEY.md §4/§5.8). Each process builds identical
 data deterministically, shards it over the GLOBAL ('kf_part','lmk') mesh
-(kf_part = the DCN/process axis), runs one
+(kf_part = the process axis), runs one
 `mesh2d.partitioned_distributed_solve` step, and verifies its local
 partition against a purely-local single-device `optimize_window`."""
 import os
@@ -43,7 +43,7 @@ def main():
     lay = layout(cfg)
     mesh = global_mesh_2d(n_part=nproc, n_lmk=n_lmk)
     assert mesh.devices.shape == (nproc, n_lmk)
-    # row p of the mesh must be process p's devices (consensus axis on "DCN")
+    # row p of the mesh must be process p's devices (consensus axis across processes)
     assert all(d.process_index == p for p in range(nproc) for d in mesh.devices[p])
 
     # identical data in every process (deterministic seed)

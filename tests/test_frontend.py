@@ -158,7 +158,7 @@ def test_line_tracking_binary_matches_float(rng):
     img2 = shift_image(img1, 4.0, 2.0)
     cam = PinholeRadTan.create(300.0, 300.0, 160.0, 120.0)
     fe_f = fl.FrontendLines(cam, max_lines=32)
-    fe_b = fl.FrontendLines(cam, max_lines=32, binary_desc=True, pallas=False)
+    fe_b = fl.FrontendLines(cam, max_lines=32, binary_desc=True)
     idsf1, _ = fe_f.process(img1, 0.0)
     idsb1, _ = fe_b.process(img1, 0.0)
     idsf2, _ = fe_f.process(img2, 0.05)

@@ -93,7 +93,7 @@ def test_wiggle_preamble_imu_consistent():
 
 def test_associative_scan_matches_sequential():
     """`preintegrate` (lax.associative_scan formulation — log-depth batched
-    15×15 matmuls, the TPU-native redesign of IntegrationBase::propagate)
+    15×15 matmuls, the accelerator redesign of IntegrationBase::propagate)
     must reproduce the sequential midpoint recursion to float reassociation,
     including zero-dt padded steps (exact identity elements)."""
     rng = np.random.default_rng(0)

@@ -139,7 +139,7 @@ def test_estimator_path_groups_reuse_prior(lp):
       * any retrace (fused-in-backend vs standalone executable) perturbs f32
         rounding enough to flip eigenvalues across the pinv FLOOR, moving
         JᵀJ by a few percent in the near-floor modes — an intrinsic property
-        of FEJ+pinv in f32, self-consistent in production because the TPU
+        of FEJ+pinv in f32, self-consistent in production because the device
         path always runs the one fused executable. So groups-vs-recomputed
         must be compared within the same executable (here: both external)."""
     from plslam.models import marginalization as marg

@@ -62,3 +62,19 @@ def test_native_clahe_properties():
     tout = out[:30, :40]
     a, b = np.unravel_index(tile.argmin(), tile.shape), np.unravel_index(tile.argmax(), tile.shape)
     assert tout[a] <= tout[b]
+
+
+def test_native_rebuilds_when_missing_or_stale(tmp_path, monkeypatch):
+    """A library older than dataloader.cpp (or none at all) is rebuilt, so a
+    stale or foreign build never runs in place of the source."""
+    src, lib = tmp_path / "dataloader.cpp", tmp_path / "libplslam_io.so"
+    monkeypatch.setattr(native, "_SRC_PATH", str(src))
+    monkeypatch.setattr(native, "LIB_PATH", str(lib))
+    src.write_text("//")
+    assert native._stale()  # missing
+    lib.write_text("")
+    os.utime(src, (2000, 2000))
+    os.utime(lib, (1000, 1000))
+    assert native._stale()  # older than its source
+    os.utime(lib, (3000, 3000))
+    assert not native._stale()

@@ -281,9 +281,9 @@ def test_pcg_matches_dense_pgo():
 @pytest.mark.slow
 def test_pgo_full_capacity_2048():
     """4-DoF PGO at the default 2048-keyframe capacity must close a long
-    drifting loop. On-chip this takes the dense path (268 MB Hessian, 329 ms
-    on v5e — measured faster than PCG's sequential matvecs); the PCG path is
-    forced explicitly below to pin the beyond-capacity solver too."""
+    drifting loop. At this capacity it takes the dense path (268 MB Hessian;
+    its GPU time against PCG's sequential matvecs is not measured); the PCG
+    path is forced explicitly below to pin the beyond-capacity solver too."""
     n = 2000
     gt_p, gt_yaw, vio_p, vio_yaw = make_drifting_loop(n, yaw_drift_total=0.2,
                                                       pos_drift_total=1.0)

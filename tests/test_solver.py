@@ -134,7 +134,7 @@ def test_optimize_structured_matches_dense_solve(window):
 
 
 def test_optimize_float32(window):
-    """The TPU path (f32 normal equations) must stay accurate to ~mm scale."""
+    """The accelerator path (f32 normal equations) must stay accurate to ~mm scale."""
     state_gt, f = window
     to32 = lambda t: jax.tree.map(lambda a: a.astype(jnp.float32) if a.dtype == jnp.float64 else a, t)
     state32, f32 = to32(state_gt), to32(f)
